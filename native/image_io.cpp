@@ -4,7 +4,7 @@
 //
 // Role in the framework (SURVEY.md §2.4): the reference delegates image IO to
 // the Taichi runtime (`ti.tools.imread`/`imwrite`, src/ibl.py:14,
-// src/main.py:55). Our TPU build keeps the host-side runtime native: frame
+// src/main.py:55). This build keeps the host-side runtime native: frame
 // output (PNG) and HDR envmap input never round-trip through Python pixel
 // loops.
 //

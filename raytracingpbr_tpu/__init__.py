@@ -1,10 +1,10 @@
-"""raytracingpbr_tpu — a TPU-native differentiable SDF path tracer in JAX.
+"""raytracingpbr_tpu — a differentiable SDF path tracer in JAX for NVIDIA GPUs.
 
-Brand-new framework with the capabilities of HK-SHAO/RayTracingPBR
-(reference at /root/reference), re-designed TPU-first: struct-of-arrays
-scenes, wavefront ``lax.scan`` integration, counter-based shard-invariant
-RNG, implicit-function march gradients, ``shard_map`` ray-tile parallelism
-and Pallas kernels for the hot march+shade loop. See SURVEY.md for the
+Brand-new framework with the capabilities of HK-SHAO/RayTracingPBR,
+re-designed for XLA: struct-of-arrays scenes, wavefront ``lax.scan``
+integration, counter-based shard-invariant RNG, implicit-function march
+gradients, ``shard_map`` ray-tile parallelism and a Pallas kernel for the
+hot march loop. See SURVEY.md for the
 layer map this build follows.
 """
 

@@ -66,8 +66,8 @@ def run(steps: int = 100, keep: float = 0.5, threshold: float = 0.2,
 
 
 def main(argv=None):
-    from ..utils.platform import honor_jax_platforms
-    honor_jax_platforms()
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--out", default="out/denoise")

@@ -1,6 +1,6 @@
 """Headless interactive renderer: the reference live app's control protocol
 (``src/main.py:24-68``) driven by a text command stream instead of a GUI
-window (TPU hosts are headless, SURVEY.md §7.1).
+window (accelerator hosts are headless, SURVEY.md §7.1).
 
 Protocol (one command per line on stdin, or scripted via ``run_commands``):
     w/a/s/d     move camera (fly-cam, damped like SmoothCamera)
@@ -143,8 +143,8 @@ class InteractiveSession:
 
 
 def main(argv=None):
-    from ..utils.platform import honor_jax_platforms
-    honor_jax_platforms()
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import argparse
 
     from ..models import demo

@@ -36,8 +36,8 @@ def render_animation(scene_fn, env: Environment, cam: Camera,
 
     ``integrator``: "megakernel" (exact example-variant parity,
     ``render_image``) or "wavefront" (the src/-engine progressive scheme run
-    to >= spp deposits per pixel — same estimator family, ~8x faster on TPU
-    because no lane idles behind the longest path)."""
+    to >= spp deposits per pixel — same estimator family, faster because
+    no lane idles behind the longest path)."""
     os.makedirs(out_dir, exist_ok=True)
     log = MetricsLogger(metrics_path)
 
@@ -84,8 +84,8 @@ def render_animation(scene_fn, env: Environment, cam: Camera,
 
 
 def main(argv=None):
-    from ..utils.platform import honor_jax_platforms
-    honor_jax_platforms()
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from ..models import bunny, cornell, demo
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -104,7 +104,7 @@ def main(argv=None):
     p.add_argument("--integrator", default="megakernel",
                    choices=["megakernel", "wavefront"],
                    help="megakernel = exact example parity; wavefront = "
-                        "same estimator family, ~8x faster on TPU")
+                        "same estimator family, no lane idles")
     p.add_argument("--nee", action="store_true",
                    help="env importance sampling + specular MIS "
                         "(cfg.env_sampling; HDR-sky scenes only — bakes "

@@ -2,7 +2,7 @@
 
 Closes the last L7 gap vs the reference's windowed app
 (``/root/reference/src/main.py:14-18,64`` — ``ti.ui.Window`` +
-``canvas.set_image``): on a TPU host there is no display, so the converging
+``canvas.set_image``): a GPU server has no display, so the converging
 framebuffer is served over HTTP instead. One background thread, stdlib only:
 
 * ``/``          — HTML page that live-reloads the frame (~2 Hz poll)

@@ -1,6 +1,6 @@
 """Progressive renderer daemon: the reference's live loop
 (``src/main.py:24-68`` / ``src/renderer.py:25-32``) without the GUI — on a
-TPU host the primary UX is headless (SURVEY.md §7.1 "ti.ui"): accumulate
+GPU server the primary UX is headless (SURVEY.md §7.1 "ti.ui"): accumulate
 wavefront samples, periodically write the tonemapped framebuffer + a
 checkpoint, resume bit-exactly after preemption.
 
@@ -127,8 +127,8 @@ def run(scene, env, cam, cfg, out_dir: str, minutes: float = 1.0,
 
 
 def main(argv=None):
-    from ..utils.platform import honor_jax_platforms
-    honor_jax_platforms()
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from ..models import cornell, demo
 
     p = argparse.ArgumentParser(description=__doc__)

@@ -1,6 +1,6 @@
 """Render configuration.
 
-TPU-native re-design of the reference's module-constant config
+Re-design of the reference's module-constant config
 (``/root/reference/src/config.py:7-28``). Instead of import-time globals that
 specialize Taichi kernels via ``ti.static``, we use a frozen dataclass passed
 explicitly; every field is Python-static at ``jax.jit`` trace time, giving the
@@ -111,43 +111,11 @@ class RenderConfig:
     march_t0: float = 0.0            # initial t (v3/examples use MIN_DIS)
     max_dis: float = 1e3             # src/config.py:23
 
-    # Pallas march loop unroll (iterations per cross-lane convergence check;
-    # pallas/march_kernel.py). None = backend-tuned default. Fewer march
-    # iterations per ray (e.g. over-relaxed omega) favor smaller chunks:
-    # post-convergence work inside a chunk is masked but not free.
-    march_chunk: Optional[int] = None
-
-    # March kernel tile height in sublanes (lanes per grid tile =
-    # rows * 128). Smaller tiles localize divergence (a tile exits at ITS
-    # max need); larger tiles amortize Mosaic per-tile fixed cost
-    # (measured ~3.5 us/tile). At the split-march default (budget 32 =
-    # one chunk) every active tile pays exactly 32 trips regardless of
-    # height, so taller tiles are pure fixed-cost savings: measured +11%
-    # on cornell/tokyo/bunny at rows=32, pixels bit-identical (round 5).
-    # None = auto: 32 when the kernel's trip budget is <= 64 (split-march
-    # steps), else 8 (long single-shot marches keep fine divergence
-    # granularity). bunny_mxu forces 8 (its kron packing assumes
-    # 8-sublane feature blocks).
-    march_tile_rows: Optional[int] = None
-
-    # Compacted multi-phase march (pallas/march_kernel.march_phased): march
-    # everyone a small budget, repack the unconverged lanes into dense
-    # tiles, resume with doubled budgets carrying exact loop state.
-    # Bit-identical results; executed lane-iterations approach the per-lane
-    # algorithmic need instead of per-tile max (the <1% grazing-ray tail
-    # otherwise poisons nearly every tile — 14x measured waste on the
-    # mixed-state cornell wavefront, tools/probe_divergence.py). Applies to
-    # the Pallas backend only. march_phases overrides the auto budget split
-    # (must sum to max_raymarch).
-    #
-    # DEFAULT OFF: measured on TPU v5e (tools/probe_phased.py, round 4) the
-    # phased path's per-phase full-batch gathers + 5 pallas_call launches
-    # cost far more than the divergence they reclaim — primary march
-    # ~195 ms phased vs ~3.7 ms single-shot (53x), cornell wavefront 0.43 vs
-    # 10.4 Msamples/s. Do not default True again without a recorded
-    # probe_phased.py run on hardware showing it wins.
-    march_compaction: bool = False
-    march_phases: Optional[Tuple[int, ...]] = None
+    # March kernel (pallas/march_kernel.py, the GPU march path): rays per
+    # program, a power of two (None = the kernel's default); smaller blocks
+    # localize divergence (a block exits at ITS max need), larger ones
+    # amortize per-program cost.
+    march_block: Optional[int] = None
 
     # Terminate miss lanes as soon as they are outside the scene's bounding
     # sphere and receding, instead of marching all the way to max_dis
@@ -190,41 +158,25 @@ class RenderConfig:
 
     # Budget-capped SPLIT MARCH for the wavefront integrator (no reference
     # analog; the answer to the march divergence tax that reordering and
-    # compaction could not give — tools/probe_reorder.py measured gathers
-    # costing more than the whole march, and stale sort keys decorrelate
-    # within one frame). Each wavefront step marches at most this many
-    # trips; a lane that neither hits nor escapes carries its EXACT loop
-    # state (FrameState.march_state) and resumes next step, so a deep
-    # segment spreads over steps while its (8,128) tile-mates advance their
-    # own fresh segments. Per lane the iteration sequence equals one
+    # compaction could not give). Each wavefront step marches at most this
+    # many trips; a lane that neither hits nor escapes carries its EXACT
+    # loop state (FrameState.march_state) and resumes next step, so a deep
+    # segment spreads over steps while its block-mates advance their own
+    # fresh segments. Per lane the iteration sequence equals one
     # uninterrupted march and consumption is min(residual, budget)
-    # independent of tile composition — deposits/scheduling are
+    # independent of block composition — deposits/scheduling are
     # sharding- and checkpoint-invariant (tests/test_split_march.py; on
     # the CPU mesh stand-in the in-flight f32 carry can differ at
     # reassociation level because XLA-CPU forms FMAs differently per
     # shard size — per-lane math is identical). The sampling SCHEDULE
     # changes (a deep segment's shading draws happen at a later step
     # counter), so images differ from the unsplit wavefront in noise
-    # realization only — each pixel's estimator is unchanged.
-    # Simulated on the measured cornell need distribution
-    # (tools/probe_split_budget.py): executed/needed tax 13.1x -> 2.0x at
-    # budget 32 with 90% of segments still completing per step. MEASURED
-    # on TPU v5e (tools/probe_split_hw.py, round 5, cornell full-PBR
-    # wavefront): 11.9 -> 31.4 Msamples/s at budget 32 (2.7x); 64/128
-    # budgets and finer chunks all inferior (25.4 / 17.5 / 24.9 Msps).
-    # Applies to the wavefront integrator only (megakernel/replay keep
-    # exact per-bounce scan semantics), and only when the budget divides
-    # max_raymarch (see wavefront_step); None = off.
+    # realization only — each pixel's estimator is unchanged. The budget of
+    # 32 was chosen on earlier hardware; its value on the GPU is not
+    # measured yet. Applies to the wavefront integrator only
+    # (megakernel/replay keep exact per-bounce scan semantics), and only
+    # when the budget divides max_raymarch (see wavefront_step); None = off.
     march_split: Optional[int] = 32
-
-    # Evaluate the neural-bunny MLP's 16-wide layers on the MXU inside the
-    # Pallas march kernel (pallas/march_kernel.pack_bunny_mxu): the feature
-    # stack's native (16*8, 128) layout turns each contraction into ONE
-    # (128,128) matmul against a constant kron(W.T, eye(8)) block — no
-    # relayouts; sins/residuals stay on the VPU. Identical math up to f32
-    # summation order inside the MXU (goldens are tolerance-gated).
-    # Default set by measurement — tools/probe_bunny_mxu.py, round 5.
-    bunny_mxu: bool = False
 
     # Occlusion-only "diet" march for NEE shadow rays (cfg.env_sampling; no
     # reference analog — the reference has no NEE). A binary visibility
@@ -235,8 +187,7 @@ class RenderConfig:
     # to any surface counts occluded), a reduced iteration budget
     # (auto: min(128, max_raymarch)), and the escape-bound early exit
     # (exact for visibility). Budget-exhausted lanes count visible.
-    # Bias + speedup measured on hardware (tools/bench_nee.py, round 5) —
-    # see the committed numbers in SCALING.md before changing defaults.
+    # tools/bench_nee.py measures its bias and speed.
     shadow_diet: bool = True
     shadow_max_raymarch: Optional[int] = None   # auto: min(128, max_raymarch)
     shadow_hit_precision: Optional[float] = None  # auto: 0.5 * min_dis

@@ -1,7 +1,7 @@
 """Math utilities (reference: ``/root/reference/src/util.py``).
 
-All functions are batched: vectors are ``(..., 3)`` arrays and everything maps
-cleanly onto the TPU VPU. No scalar loops.
+All functions are batched: vectors are ``(..., 3)`` arrays and everything is
+elementwise over the batch. No scalar loops.
 """
 from __future__ import annotations
 
@@ -71,9 +71,9 @@ def rotate_euler(angles: jax.Array) -> jax.Array:
         jnp.stack([zero, cx, sx], -1),
         jnp.stack([zero, -sx, cx], -1),
     ], -2)
-    # full-precision 3x3 composition (TPU DEFAULT matmul precision is bf16
-    # — 0.4% error in a rotation matrix shears every object; see
-    # ops/sdf.to_object_space)
+    # full-precision 3x3 composition (DEFAULT f32 matmul precision may
+    # round the inputs — TF32 on the GPU — and a 0.4% error in a rotation
+    # matrix shears every object; see ops/sdf.to_object_space)
     hi = jax.lax.Precision.HIGHEST
     return jnp.matmul(jnp.matmul(rz, ry, precision=hi), rx, precision=hi)
 

@@ -2,13 +2,13 @@
 
 The reference uses Taichi's stateful per-thread RNG (``ti.random()``,
 ``src/util.py:53-62``) and leaves a ToDo for low-discrepancy sequences
-(``src/util.py:64``). On TPU we need an RNG that is
+(``src/util.py:64``). Under XLA we need an RNG that is
 
   * stateless (everything under ``jit`` is pure),
   * *shard-invariant*: pixel ``p`` draws the same numbers whether the image is
-    rendered on 1 chip or sharded over a pod (SURVEY.md §2.4, §7.4.4) — this
+    rendered on 1 card or sharded over many (SURVEY.md §2.4, §7.4.4) — this
     is also what makes checkpoint/resume bit-exact,
-  * vectorized: one VPU pass produces randoms for the whole ray batch.
+  * vectorized: one elementwise pass produces randoms for the whole batch.
 
 We use the pcg4d hash (Jarzynski & Olano, "Hash Functions for GPU Rendering",
 JCGT 2020 — public domain construction): a 4-word counter

@@ -1,6 +1,6 @@
 """Core pytree types.
 
-TPU-native re-expression of the reference's Taichi structs
+XLA-native re-expression of the reference's Taichi structs
 (``/root/reference/src/dataclass.py:5-46``). Where Taichi uses array-of-struct
 fields (``Ray.field()``, ``src/fileds.py:7``), we use struct-of-arrays pytrees:
 every field is a ``jax.Array`` with a leading batch dimension, so a "field of
@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from . import struct
 
 # FrameState.hit_t sentinel: no surface recorded for this pixel yet
 NO_HIT_T = 1e10
@@ -124,8 +125,8 @@ class FrameState:
     # of an in-flight march segment, and the cumulative trips it has
     # consumed (0 = no segment in flight). Lets a wavefront step cap its
     # march at a small budget and resume deep segments next step instead
-    # of stalling whole (8,128) tiles for up to max_raymarch iterations
-    # (ops/integrator._trace_one_bounce, tools/probe_split_budget.py).
+    # of stalling whole kernel blocks for up to max_raymarch iterations
+    # (ops/integrator._trace_one_bounce).
     march_state: jax.Array  # (N, 4) f32
     march_cum: jax.Array    # (N,) i32
 

@@ -1,6 +1,6 @@
 """Checkpoint / resume for progressive renders.
 
-New component (SURVEY.md §5 "Failure detection"): TPU pods preempt, so
+New component (SURVEY.md §5 "Failure detection"): cluster jobs preempt, so
 multi-hour progressive/animation renders persist (framebuffer accumulator,
 wavefront ray state, frame counter) and resume *bit-exactly* — possible
 because every random draw derives from the (pixel, frame-counter) RNG

@@ -4,8 +4,8 @@ Reference: ``examples/bunny/bunny_sdf.py`` (metal, 4K),
 ``bunny_sdf_v2.py`` (white background, headless) and
 ``bunny_sdf_glass.py`` (dielectric, HDR IBL, 240-frame animation) —
 SURVEY.md §2.2. The bunny geometry is a sin-activated 16-wide MLP
-(``bunny_sdf_glass.py:150-203``); on TPU its two 16x16 layers run on the MXU
-over the whole ray batch (SURVEY.md §7.4.6).
+(``bunny_sdf_glass.py:150-203``); the march kernel evaluates its two 16x16
+layers as unrolled FMA chains per ray (SURVEY.md §7.4.6).
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..core import struct
 from ..core import rng as rnglib
 from ..core.math import normalize, radians
 from ..core.types import Camera, Rays

@@ -1,18 +1,17 @@
-"""Frame-granularity adaptive compaction (VERDICT r4 item 6).
+"""Frame-granularity adaptive compaction.
 
 With ``cfg.adaptive_sampling``, a converged pixel skips march work only if
-its whole (8,128) lane tile is inactive (``ops/march.march`` ``active``
-gate) — scattered actives keep nearly every tile hot, so r4 measured only a
-22% frame-time saving at 59% inactive. The fix: keep the persistent
-``FrameState`` in an ACTIVES-FIRST lane order so inactive lanes pool into
-fully-dense tiles that exit immediately.
+its whole kernel block of lanes is inactive (``ops/march.march`` ``active``
+gate) — scattered actives keep nearly every block hot. The fix: keep the
+persistent ``FrameState`` in an ACTIVES-FIRST lane order so inactive lanes
+pool into fully-dense blocks that exit immediately.
 
-Design facts (measured, tools/probe_gather.py, TPU v5e):
-  * a 230k-row gather costs ~3 ms REGARDLESS of row width (latency-bound),
-    so the whole state is packed into ONE wide f32 block (ints bitcast)
-    and permuted with a single gather + one (N,) gather for pixel ids;
+Design:
+  * the whole state is packed into ONE wide f32 block (ints bitcast) and
+    permuted with a single gather + one (N,) gather for pixel ids;
   * the active set drifts slowly (noise estimates move per frame), so
     recompacting every N frames amortizes that cost to noise level.
+  Whether this pays on the GPU is not measured yet.
 
 Correctness: the wavefront is lane-order-invariant — every per-pixel draw
 is keyed on ``pixel_id`` (data, not position), deposits land in the lane's

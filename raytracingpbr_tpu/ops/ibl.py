@@ -6,7 +6,7 @@ pre-baked exposure/gamma), the procedural gradient sky
 (``src/pathtracer.py:33-34``, ``bunny_sdf.py:352``,
 ``bunny_sdf_v2.py:355-358``).
 
-TPU-native design: the environment is a small pytree with a *static* kind;
+Design: the environment is a small pytree with a *static* kind;
 ``sky_color`` dispatches at trace time. HDR maps are replicated device arrays
 and the lookup is a gather (SURVEY.md §7.1). Beyond reference parity we add a
 bilinear filter and a luminance-CDF importance sampler (the reference's own
@@ -19,8 +19,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from ..core import struct
 from ..core.math import brightness, mix, sample_spherical_map
 
 
@@ -100,66 +100,10 @@ def hdr_environment(image: jax.Array, exposure: float = 1.4,
                        scale=jnp.asarray(scale, img.dtype))
 
 
-# One-hot-matmul threshold for per-lane table fetches. TPU row gathers are
-# latency-bound at ~14 ns/row regardless of row width
-# (tools/probe_gather.py), so a 230k-lane env fetch costs ~3 ms — and the
-# NEE inner loop does several per bounce (measured 8.4 ms sample + 5.1 ms
-# env_pdf per invocation, tools/probe_nee_cost.py). For small tables a
-# one-hot (N, m) @ (m, k) matmul fetches the same rows on the MXU in the
-# time it takes to stream N*m one-hot bits (~0.6 ms at m=512), is exact
-# (one nonzero term per row; f32 accumulate), and is linear — the env
-# image stays differentiable with an MXU-shaped VJP instead of a
-# scatter-add. Above the threshold the one-hot traffic (∝ N*m) loses to
-# the gather; real multi-megapixel HDR maps keep the gather path.
-_ONEHOT_MAX_ROWS = 1024
-
-
-_TWOLEVEL_MAX_ROWS = 8192  # beyond this K grows past ~8 and gather wins
-
-
 def fetch_rows(table: jax.Array, idx: jax.Array) -> jax.Array:
-    """``table[idx]`` for (m, ...) tables and (N,) int indices.
-
-    * m <= _ONEHOT_MAX_ROWS: direct one-hot matmul (see note above).
-    * m <= _TWOLEVEL_MAX_ROWS: two-level — rows are grouped in K =
-      ceil(m/1024) consecutive rows; an (N, m/K) outer one-hot matmul
-      fetches each lane's whole K-row group as a small (N, K*k) block,
-      then K masked column-selects pick the row. One-hot traffic stays
-      ~N*1024 regardless of m; the intermediate block is tiny.
-    * larger (real multi-megapixel HDR maps): plain gather.
-    Exact in all paths (one nonzero product per row; f32 holds group ids
-    and int payloads below 2^24 exactly)."""
-    m = table.shape[0]
-    if idx.ndim != 1 or m > _TWOLEVEL_MAX_ROWS:
-        return table[idx]
-    flat = table.reshape(m, -1)
-    k = flat.shape[1]
-    dt = flat.dtype if jnp.issubdtype(flat.dtype, jnp.floating) \
-        else jnp.float32
-    if m <= _ONEHOT_MAX_ROWS:
-        oh = (idx[:, None] == jnp.arange(m, dtype=idx.dtype)[None, :]
-              ).astype(dt)
-        out = jnp.dot(oh, flat.astype(dt), preferred_element_type=dt)
-    else:
-        kk = -(-m // _ONEHOT_MAX_ROWS)      # rows per group (<= 8)
-        groups = -(-m // kk)                # <= 1024
-        pad = groups * kk - m
-        if pad:
-            flat = jnp.concatenate(
-                [flat, jnp.zeros((pad, k), flat.dtype)], axis=0)
-        gtab = flat.reshape(groups, kk * k).astype(dt)
-        hi = (idx // kk).astype(idx.dtype)
-        lo = idx % kk
-        oh = (hi[:, None] == jnp.arange(groups, dtype=idx.dtype)[None, :]
-              ).astype(dt)
-        block = jnp.dot(oh, gtab, preferred_element_type=dt)  # (N, kk*k)
-        out = jnp.zeros((idx.shape[0], k), dt)
-        for j in range(kk):
-            out = jnp.where((lo == j)[:, None],
-                            block[:, j * k:(j + 1) * k], out)
-    if not jnp.issubdtype(table.dtype, jnp.floating):
-        out = jnp.round(out).astype(table.dtype)
-    return out.reshape((idx.shape[0],) + table.shape[1:])
+    """``table[idx]`` for (m, ...) tables and integer indices: a plain
+    gather, exact at any table size (the GPU gathers natively)."""
+    return table[idx]
 
 
 def _texture_nearest(img: jax.Array, uv: jax.Array) -> jax.Array:
@@ -167,8 +111,6 @@ def _texture_nearest(img: jax.Array, uv: jax.Array) -> jax.Array:
     w, h = img.shape[0], img.shape[1]
     x = jnp.clip((uv[..., 0] * w).astype(jnp.int32), 0, w - 1)
     y = jnp.clip((uv[..., 1] * h).astype(jnp.int32), 0, h - 1)
-    if x.ndim == 1 and img.shape[0] * img.shape[1] <= _TWOLEVEL_MAX_ROWS:
-        return fetch_rows(img.reshape(w * h, 3), x * h + y)
     return img[x, y]
 
 
@@ -220,7 +162,7 @@ class EnvImportanceSampler:
 
     Not present in the reference (its ToDo hints at low-discrepancy sampling,
     ``src/util.py:64``); provided as the standard IBL variance reduction for
-    the TPU build. Sampling is two searchsorted gathers — VPU-friendly.
+    this build. Sampling is two searchsorted gathers.
     """
 
     env: Environment
@@ -255,9 +197,8 @@ class EnvAliasSampler:
 
     Same distribution as :class:`EnvImportanceSampler` but O(1) per draw —
     two gathers (prob, alias) instead of a ~22-step binary search per lane —
-    the right trade inside a per-bounce NEE loop on TPU, where gathers are
-    the expensive op. Table build is one host-side O(W*H) pass at scene
-    setup.
+    the right trade inside a per-bounce NEE loop. Table build is one
+    host-side O(W*H) pass at scene setup.
     """
 
     env: Environment
@@ -377,18 +318,8 @@ def sample_env_baked(env: Environment, u: jax.Array,
     cell = jnp.clip(scaled.astype(jnp.int32), 0, n - 1)
     if u_accept is None:
         u_accept = scaled - cell.astype(scaled.dtype)
-    if cell.ndim == 1 and n <= _TWOLEVEL_MAX_ROWS:
-        # prob + alias fetched together through ONE one-hot matmul (the
-        # alias id is exact in f32: < n <= 1024 << 2^24)
-        pa = fetch_rows(
-            jnp.stack([env.s_prob,
-                       env.s_alias.astype(env.s_prob.dtype)], axis=-1),
-            cell)
-        take_alias = u_accept >= pa[:, 0]
-        texel = jnp.where(take_alias, pa[:, 1].astype(jnp.int32), cell)
-    else:
-        take_alias = u_accept >= env.s_prob[cell]
-        texel = jnp.where(take_alias, env.s_alias[cell], cell)
+    take_alias = u_accept >= fetch_rows(env.s_prob, cell)
+    texel = jnp.where(take_alias, fetch_rows(env.s_alias, cell), cell)
     x = texel // h
     y = texel % h
     if u_jitter is None:
@@ -402,17 +333,8 @@ def sample_env_baked(env: Environment, u: jax.Array,
     cl = jnp.cos(lat)
     direction = jnp.stack(
         [cl * jnp.cos(phi), jnp.sin(lat), cl * jnp.sin(phi)], axis=-1)
-    # radiance + pdf through one fused one-hot fetch (4 columns)
-    if x.ndim == 1 and n <= _TWOLEVEL_MAX_ROWS:
-        block = jnp.concatenate(
-            [img.reshape(n, 3),
-             env.s_pdf.reshape(n, 1).astype(img.dtype)], axis=-1)
-        rp = fetch_rows(block, texel)
-        radiance = rp[:, :3] * env.scale
-        pdf = rp[:, 3]
-    else:
-        radiance = img[x, y] * env.scale
-        pdf = env.s_pdf[x, y]
+    radiance = img[x, y] * env.scale
+    pdf = env.s_pdf[x, y]
     if u_jitter is not None:
         pdf = pdf * _texel_center_cl(y, h, img.dtype) \
             / jnp.maximum(cl, 1e-4)
@@ -432,10 +354,7 @@ def env_pdf(env: Environment, direction: jax.Array) -> jax.Array:
     x = jnp.clip((uv[..., 0] * w).astype(jnp.int32), 0, w - 1)
     y = jnp.clip((uv[..., 1] * h).astype(jnp.int32), 0, h - 1)
     cl = jnp.sqrt(jnp.maximum(1.0 - direction[..., 1] ** 2, 1e-8))
-    if x.ndim == 1 and w * h <= _TWOLEVEL_MAX_ROWS:
-        spdf = fetch_rows(env.s_pdf.reshape(w * h), x * h + y)
-    else:
-        spdf = env.s_pdf[x, y]
+    spdf = env.s_pdf[x, y]
     return spdf * _texel_center_cl(y, h, img.dtype) \
         / jnp.maximum(cl, 1e-4)
 

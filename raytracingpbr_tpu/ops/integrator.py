@@ -6,7 +6,7 @@ Two integrators, mirroring the reference's two engine generations
 * ``wavefront_step`` / ``render_frame`` — the src/ engine's progressive
   wavefront scheme (``src/pathtracer.py``): persistent per-pixel ray state,
   each call advances every pixel's path by ~one bounce-segment, finished
-  paths deposit into the accumulator and respawn. On TPU this is the
+  paths deposit into the accumulator and respawn. This is the
   performance-canonical form: fixed-trip work per call, no divergence, state
   carried through ``lax.scan`` (SURVEY.md §7.1).
 
@@ -57,7 +57,7 @@ def shadow_march(scene: Scene, origin, direction, cfg: RenderConfig,
 
     With ``cfg.shadow_diet`` the march runs in an occlusion-tuned mode
     (see the ``shadow_diet`` config docstring): absolute hit criterion at
-    ``min_dis/2``, a reduced iteration budget, auto chunking. Without it,
+    ``min_dis/2``, a reduced iteration budget. Without it,
     the scene's own march settings are used (round-4 behavior). Either way
     ``escape_bound`` is on — exact for a binary visibility query."""
     from ..config import HitCriterion
@@ -67,8 +67,7 @@ def shadow_march(scene: Scene, origin, direction, cfg: RenderConfig,
             max_raymarch=(cfg.shadow_max_raymarch
                           or min(128, cfg.max_raymarch)),
             hit_criterion=HitCriterion.ABSOLUTE,
-            hit_precision=(cfg.shadow_hit_precision or 0.5 * cfg.min_dis),
-            march_chunk=None)
+            hit_precision=(cfg.shadow_hit_precision or 0.5 * cfg.min_dis))
     res = marchlib.march(scene, origin, direction, sc,
                          differentiable=False, active=gate)
     return res.hit
@@ -176,9 +175,9 @@ def _trace_one_bounce(scene: Scene, env: Environment, rays: Rays,
     UNCHANGED in ``traced`` (no shading, no depth advance — their segment
     is still in flight). Per lane the iteration sequence equals one
     uninterrupted march, and per-lane consumption is min(residual, budget)
-    regardless of tile composition, so results stay sharding-invariant
-    (tools/probe_split_budget.py for why: the deep-march tail otherwise
-    stalls whole (8,128) tiles for up to max_raymarch iterations).
+    regardless of block composition, so results stay sharding-invariant
+    (the deep-march tail otherwise stalls whole kernel blocks for up to
+    max_raymarch iterations).
 
     Returns ``(traced, t, hit, nee, next_sky_w, completed, resume_out)``;
     ``completed``/``resume_out`` are None without ``resume``.
@@ -561,8 +560,7 @@ def render_frame_tile(scene: Scene, env: Environment, cam: Camera,
 def _progressive_frame_jit(cfg: RenderConfig):
     """One compiled wavefront frame with scene/env/cam/exposure as ARGUMENTS
     (one compilation per cfg, reused across animation frames and scenes —
-    closure capture would retrace per call AND embed device constants, which
-    stalls on remote-TPU backends)."""
+    closure capture would retrace per call AND embed device constants)."""
     return jax.jit(lambda scene, env, cam, st, exposure: render_frame(
         scene, env, cam, st, cfg, exposure=exposure))
 
@@ -588,9 +586,9 @@ def render_image_progressive(scene: Scene, env: Environment, cam: Camera,
     a silent normalization).
 
     Same estimator family as the reference's progressive src/ engine
-    (``src/renderer.py:25-32`` looped); ~8x faster than ``render_image``'s
-    megakernel on TPU because every lane does useful work every step (no
-    dead lanes waiting for the longest path; SURVEY.md §3.2). Use
+    (``src/renderer.py:25-32`` looped); faster than ``render_image``'s
+    megakernel because every lane does useful work every step (no dead
+    lanes waiting for the longest path; SURVEY.md §3.2). Use
     ``render_image`` when exact example-megakernel parity or end-to-end
     differentiability is required.
     """

@@ -9,13 +9,15 @@ rollback, after erleuchtet.org "enhanced sphere tracing"; cone hit criterion
 ``cornell_box_shortest.py:63-72``) and the absolute-precision hit test
 (``cornell_box.py:214-223``).
 
-TPU-native design (SURVEY.md §7.2.3): one ``lax.while_loop`` advances the
-*whole flat ray batch* in lock-step with per-lane active masks — the wavefront
-answer to march-count divergence. The loop exits when every lane has hit or
-escaped, or at ``max_raymarch``. Bookkeeping keeps the ray origin fixed and
-tracks the scalar ``t`` per lane (the v3 form); for the src/ engine the
-shading point is ``origin + t*direction``, identical to its in-place advanced
-origin.
+Two paths with one contract (SURVEY.md §7.2.3). The XLA loop here (the CPU
+path) is one ``lax.while_loop`` that advances the *whole flat ray batch* in
+lock-step with per-lane active masks; it exits when every lane has hit or
+escaped, or at ``max_raymarch``. On the GPU the fused Pallas kernel
+(``pallas/march_kernel.py``) marches each block of rays in its own loop and
+exits per block (:func:`_use_kernel` chooses). Bookkeeping keeps the ray
+origin fixed and tracks the scalar ``t`` per lane (the v3 form); for the src/
+engine the shading point is ``origin + t*direction``, identical to its
+in-place advanced origin.
 
 Gradients: reverse-mode AD through a 512-iteration march is hopeless
 (SURVEY.md §7.4.3); instead ``march`` detaches the loop and re-attaches
@@ -226,7 +228,7 @@ def march_resumable(scene: Scene, origin: jax.Array, direction: jax.Array,
     loop state — per lane, the iteration sequence across resumed calls is
     bit-identical to one uninterrupted march (the Pallas kernel's
     ``has_init`` path; same contract in the XLA loop). Per-lane consumption
-    is ``min(residual need, budget)`` regardless of tile composition, so
+    is ``min(residual need, budget)`` regardless of block composition, so
     split marching is sharding-invariant. Forward-only (callers attach
     ``_hit_t`` at segment completion)."""
     scene = jax.lax.stop_gradient(scene)
@@ -235,24 +237,10 @@ def march_resumable(scene: Scene, origin: jax.Array, direction: jax.Array,
     active = None if active is None else jax.lax.stop_gradient(active)
     init = None if init is None else tuple(
         jax.lax.stop_gradient(v) for v in init)
-    if _use_pallas(scene, backend):
-        from ..pallas.march_kernel import _march_pallas_impl, pack_bunny, \
-            pack_bunny_mxu, pack_scene
-        from .sdf import SHAPE
-        has_bound = (cfg.escape_bound
-                     and SHAPE.PLANE not in scene.shape_types)
-        params = pack_scene(scene, escape_bound=has_bound)
-        bunny = ((pack_bunny_mxu(scene) if cfg.bunny_mxu
-                  else pack_bunny(scene))
-                 if scene.bunny is not None else None)
-        out = _march_pallas_impl(params, bunny, origin, direction, active,
-                                 tuple(scene.shape_types),
-                                 float(scene.box_round), cfg,
-                                 rot_perm=tuple(scene.rot_perm),
-                                 has_bound=has_bound, init=init,
-                                 bunny_mxu=cfg.bunny_mxu)
-        t, idx, hit, fin, w, s, d, done = out
-        return ResumableResult(t, idx, hit.astype(bool), fin, w, s, d, done)
+    if _use_kernel(backend):
+        from ..pallas.march_kernel import march_kernel_state
+        return ResumableResult(*march_kernel_state(
+            scene, origin, direction, cfg, active=active, init=init))
     _, st = _march_loop(scene, origin, direction, cfg, active=active,
                         init=init)
     # fin for unconverged-but-active lanes is the full budget (they ran to
@@ -261,14 +249,23 @@ def march_resumable(scene: Scene, origin: jax.Array, direction: jax.Array,
                            st.d, st.done.astype(jnp.int32))
 
 
-def _use_pallas(scene: Scene, backend: str) -> bool:
+def _use_kernel(backend: str) -> bool:
+    """Which march path runs: ``backend`` "pallas" or "xla" forces one;
+    "auto" takes the Pallas kernel on the GPU and the XLA loop on the CPU.
+    Any other platform has no march path."""
     if backend == "xla":
         return False
     if backend == "pallas":
         return True
-    # auto: fused Pallas kernel (incl. the neural-bunny MLP) on TPU-like
-    # backends; XLA loop on cpu/gpu
-    return jax.default_backend() not in ("cpu", "gpu")
+    if backend != "auto":
+        raise ValueError(f"unknown march backend {backend!r}")
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return True
+    if platform == "cpu":
+        return False
+    raise ValueError(f"no march path for platform {platform!r} "
+                     "(supported: gpu, cpu)")
 
 
 def march(scene: Scene, origin: jax.Array, direction: jax.Array,
@@ -282,27 +279,24 @@ def march(scene: Scene, origin: jax.Array, direction: jax.Array,
     implicit hit-point relation (the loop itself is detached) — gradient
     correctness is independent of which forward backend found the hit.
 
-    ``backend``: "auto" (Pallas fused kernel on TPU, XLA elsewhere),
-    "pallas", or "xla".
+    ``backend``: "auto" (Pallas fused kernel on the GPU, XLA loop on the
+    CPU, an error elsewhere), "pallas", or "xla".
 
     ``active``: optional (N,) bool — lanes marked False are done before the
     first iteration (their t/index/hit outputs are the inits and must be
     ignored by the caller). This is what makes adaptive sampling
     (``src/pathtracer.py:97-101``) and megakernel dead lanes actually SAVE
-    march work: a fully-inactive tile exits its loop immediately.
+    march work: a fully-inactive kernel block exits its loop immediately.
     """
-    if _use_pallas(scene, backend):
-        from ..pallas.march_kernel import march_pallas, march_phased
-        impl = march_phased if cfg.march_compaction else march_pallas
-        t, index, hit, lane_iters = impl(
+    if _use_kernel(backend):
+        from ..pallas.march_kernel import march_pallas
+        t, index, hit, lane_iters = march_pallas(
             jax.lax.stop_gradient(scene),
             jax.lax.stop_gradient(origin),
             jax.lax.stop_gradient(direction), cfg,
             active=(None if active is None
                     else jax.lax.stop_gradient(active)))
         # iters: batch-max lane need, same meaning as the XLA loop's counter
-        # (executed trips round up to the kernel's chunk size); per-lane
-        # counts feed bench.py's utilization accounting via march_pallas
         res = MarchResult(t, origin + t[:, None] * direction, index, hit,
                           jnp.max(lane_iters))
     else:

@@ -39,13 +39,11 @@ def rrt_and_odt_fit(v: jax.Array) -> jax.Array:
 
 
 def _mat3_apply(m: np.ndarray, rgb: jax.Array) -> jax.Array:
-    """``rgb @ m.T`` as explicit VPU FMAs.
+    """``rgb @ m.T`` as explicit elementwise FMAs.
 
-    A (N, 3) @ (3, 3) matmul on TPU pads the 3-wide contraction to the
-    128x128 MXU (and HIGHEST f32 precision runs it in multiple passes),
-    streaming ~42x the useful data — measured 1.4 ms of the 2.4 ms
-    post_process on a 230k-pixel frame. Nine scalar-coefficient FMAs on
-    the (N,) channel arrays are exact f32 and stay on the VPU."""
+    Nine scalar-coefficient FMAs on the (N,) channel arrays are exact f32
+    at any matmul precision setting, and a 3-wide contraction gains nothing
+    from a matrix unit."""
     c = [rgb[..., k] for k in range(3)]
     rows = [sum(float(m[i][k]) * c[k] for k in range(3)) for i in range(3)]
     return jnp.stack(rows, axis=-1)

@@ -20,7 +20,7 @@ target) — exactly the TAA-style trade: a slightly stale image immediately
 instead of noise from scratch. Fresh samples keep accumulating on top and
 dominate quickly because the history count is clamped.
 
-TPU notes: the only irregular op is one scatter-add per refresh — frame-rate
+Notes: the only irregular op is one scatter-add per refresh — frame-rate
 work, not per-sample; everything else is elementwise. Single-device path
 (the scatter crosses pixel tiles; under ``shard_map`` use a gather-based
 variant or render_frame's plain refresh).
@@ -68,8 +68,9 @@ def project(cam: Camera, cfg: RenderConfig, points: jax.Array):
     half_width = cam.aspect * half_height
     x, y, z = camera_basis(cam)
     d = points - cam.lookfrom
-    # explicit VPU dot — (N,3)@(3,) would hit the MXU in bf16 on TPU and
-    # shift warped pixels (see ops/sdf.to_object_space)
+    # explicit elementwise dot — an (N,3)@(3,) matmul at DEFAULT precision
+    # may round its inputs and shift warped pixels (see
+    # ops/sdf.to_object_space)
     dx = jnp.sum(d * x, -1)
     dy = jnp.sum(d * y, -1)
     dz = jnp.sum(d * z, -1)

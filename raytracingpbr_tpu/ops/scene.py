@@ -1,7 +1,7 @@
 """Scene representation and geometry queries.
 
 Reference: ``/root/reference/src/scene.py`` (OBJECTS list, ``nearest``,
-``calc_normal``, ``build_scene``). TPU-native re-design (SURVEY.md §7.1):
+``calc_normal``, ``build_scene``). Re-designed for XLA (SURVEY.md §7.1):
 
 * The scene is a **struct-of-arrays pytree** — every material/transform
   parameter is a stacked ``jax.Array`` over objects, so the whole scene is
@@ -24,8 +24,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..core import struct
 from ..core.math import radians, rotate_euler
 from . import sdf as sdflib
 from .sdf import SHAPE, BunnyMLP
@@ -247,10 +247,9 @@ def sd_object(scene: Scene, idx: jax.Array, p: jax.Array) -> jax.Array:
 
     ``idx`` (...,) int32 per ray. Computes every object's distance through
     the statically-unrolled bucket loop and hard-selects by index — NO
-    per-ray gathers: dynamic gather of the per-object transform/scale tables
-    lowers ~10x slower than the unrolled compute-all-and-select on TPU
-    (measured 6.4ms vs 0.7ms at 230k rays; scene tables are tiny, rays are
-    not). Same trick as the Pallas march kernel and ``nearest``.
+    per-ray gathers of the per-object transform/scale tables (scene tables
+    are tiny, rays are not). Same trick as the Pallas march kernel and
+    ``nearest``.
     """
     d = all_distances(scene, p)  # (..., n)
     sel = idx[..., None] == jnp.arange(scene.num_objects)
@@ -307,17 +306,16 @@ class Materials(NamedTuple):
 def materials_at(scene: Scene, idx: jax.Array) -> Materials:
     """All six material parameters of the hit object per ray
     (``src/dataclass.py:13-20``), fetched as ONE one-hot contraction against
-    the packed (n_obj, 10) table instead of six per-ray gathers (gathers are
-    the slow path on TPU; a (N, n_obj) x (n_obj, 10) matmul is MXU work)."""
+    the packed (n_obj, 10) table instead of six per-ray gathers (whether
+    the gather or the one-hot is faster on the GPU is not measured yet)."""
     dtype = scene.albedo.dtype
     table = jnp.concatenate([
         scene.albedo, scene.emission,
         scene.roughness[:, None], scene.metallic[:, None],
         scene.transmission[:, None], scene.ior[:, None]], axis=-1)
     oh = (idx[..., None] == jnp.arange(scene.num_objects)).astype(dtype)
-    # HIGHEST: the one-hot is exact but DEFAULT TPU matmul precision would
-    # truncate the table values to bf16 (albedo 0.7 -> 0.6992; see
-    # ops/sdf.to_object_space)
+    # HIGHEST: the one-hot is exact, but DEFAULT f32 matmul precision may
+    # round the table values (TF32 on the GPU keeps ~3 significant digits)
     m = jnp.matmul(oh, table,
                    precision=jax.lax.Precision.HIGHEST)  # (..., 10)
     return Materials(m[..., 0:3], m[..., 3:6], m[..., 6], m[..., 7],

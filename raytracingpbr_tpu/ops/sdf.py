@@ -20,8 +20,8 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..core import struct
 from ..core.math import radians, rotate_euler, safe_norm
 
 MAX_DIS = 1e3  # src/config.py:23
@@ -101,9 +101,9 @@ class BunnyMLP:
 
     Weights extracted as data from the public shadertoy transcription in the
     reference (``bunny_sdf_glass.py:150-203``); see
-    ``tools/extract_bunny_weights.py`` for the layout derivation. On TPU the
-    two 16x16 layers are MXU matmuls over the whole ray batch — the wavefront
-    layout batches rays for free (SURVEY.md §7.4.6).
+    ``tools/extract_bunny_weights.py`` for the layout derivation. In the XLA
+    path the two 16x16 layers are matmuls over the whole ray batch — the
+    wavefront layout batches rays for free (SURVEY.md §7.4.6).
     """
 
     w_in: jax.Array   # (3, 16)
@@ -132,12 +132,12 @@ def bunny_mlp_eval(mlp: BunnyMLP, p: jax.Array,
     """Raw MLP distance (valid inside the unit sphere); ``(..., 3) -> (...)``.
 
     ``matmul_dtype`` optionally runs the two 16x16 contractions in bf16 with
-    f32 accumulation (MXU-native); default keeps f32 for parity.
+    f32 accumulation; default keeps f32 for parity.
     """
-    # f32 runs ask for full-precision contractions: TPU DEFAULT matmul
-    # precision truncates f32 inputs to bf16 on the MXU, which an SDF's
+    # f32 runs ask for full-precision contractions: DEFAULT f32 matmul
+    # precision may round the inputs (TF32 on the GPU), which an SDF's
     # 1e-4 hit test cannot tolerate (see to_object_space). Explicit
-    # matmul_dtype=bf16 opts into the single-pass MXU path.
+    # matmul_dtype=bf16 opts into the single-pass path.
     prec = (jax.lax.Precision.HIGHEST if matmul_dtype is None
             else jax.lax.Precision.DEFAULT)
     w_h1, w_h2 = mlp.w_h1, mlp.w_h2
@@ -183,12 +183,11 @@ def to_object_space(p, position, matrix):
 
     ``p``: (..., 3); ``position``: (..., 3); ``matrix``: (..., 3, 3).
 
-    Explicit multiply-add (VPU), NOT einsum: on TPU an f32 einsum lowers to
-    an MXU contraction at DEFAULT precision = bf16 inputs, which corrupts
-    every SDF eval by ~0.4% relative — enough to tunnel the XLA march
-    through walls at hit_precision=1e-4 (caught by tests/test_tpu.py on the
-    real chip; the Pallas kernel was unaffected). A length-3 contraction
-    gains nothing from the MXU anyway.
+    Explicit multiply-add, NOT einsum: an f32 einsum at DEFAULT precision
+    may round its inputs (TF32 on the GPU, bf16 elsewhere), which corrupts
+    every SDF eval — a 0.4% relative error is enough to tunnel the XLA
+    march through walls at hit_precision=1e-4. A length-3 contraction gains
+    nothing from a matrix unit anyway.
     """
     q = p - position
     return jnp.sum(matrix * q[..., None, :], axis=-1)

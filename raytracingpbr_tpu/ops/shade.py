@@ -5,7 +5,7 @@ roughness-lerped microfacet normal, Schlick Fresnel, stochastic lobe selection
 (reflect / refract / diffuse) and throughput update. The reference leaves
 ``# ToDo: Removing if statements?`` (``src/pbr.py:47``); this implementation
 answers it: all three lobe outcomes are computed for the batch and selected
-with ``jnp.where`` — branchless, divergence-free VPU code (SURVEY.md §7.1).
+with ``jnp.where`` — branchless, divergence-free code (SURVEY.md §7.1).
 """
 from __future__ import annotations
 

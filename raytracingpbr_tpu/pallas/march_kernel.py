@@ -1,23 +1,25 @@
-"""Pallas TPU kernel: fused enhanced-sphere-trace march.
+"""Pallas kernel (Triton route, NVIDIA GPUs): fused enhanced sphere tracing.
 
 The XLA march (``ops/march.py``) advances the whole flat ray batch in
 lock-step, so one straggler ray keeps every lane marching — batch-global
-divergence. This kernel restores divergence *locality* (SURVEY.md §7.4.1,
-§7.2.10): the grid splits rays into (8, 128) register-shaped tiles, each grid
-program runs its own march loop and exits as soon as *its* tile converges.
-With hit distributions that vary across the screen this is the difference
-between paying max-iters globally and paying it per ~1k-ray tile.
+divergence — and every trip re-reads and re-writes the full ray state in
+device memory. This kernel restores divergence *locality* (SURVEY.md §7.4.1,
+§7.2.10): one program per flat block of ``BLOCK`` rays runs its own march
+loop with its state in registers, and exits as soon as *its* rays are done.
 
 Scene representation: the same static-type-bucket idea as
 ``ops/scene.all_distances`` — the object loop is unrolled in Python at trace
-time over a packed (n_obj, 16) parameter block resident in VMEM:
-``[position(3), scale(3), rotation matrix rows(9), pad]``. Shape types come
-from the static scene metadata. All math is elementwise on (8, 128) arrays —
-native VPU shape; no gathers, no dynamic indexing.
+time over a packed (n_obj, 32) parameter block passed whole:
+``[position(3), scale(3), rotation matrix rows(9), local offset(3), ...]``.
+Shape types come from the static scene metadata; each object's parameters
+are read as scalars once, before the loop. All math is elementwise on (BLOCK,)
+vectors; the one cross-lane operations are the block-wide done test and the
+bunny support guard.
 
 The march semantics mirror ``ops/march.py`` exactly (same omega policies and
 hit criteria, reference ``src/scene.py:59-84``); parity is asserted in
-tests/test_pallas.py on the interpreter and in the TPU smoke bench.
+tests/test_pallas.py in interpret mode and in tests/test_gpu.py and
+chip_smoke.py on the card.
 """
 from __future__ import annotations
 
@@ -26,18 +28,25 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..config import HitCriterion, OmegaPolicy, RenderConfig
 from ..ops.scene import Scene
 from ..ops.sdf import SHAPE
 
-# ray tile: 8 sublanes x 128 lanes (f32 native tile)
-TILE_ROWS = 8
-TILE_COLS = 128
-TILE = TILE_ROWS * TILE_COLS
+# Rays per program (a power of two, as Triton requires), one per thread:
+# one warp per block measured fastest on the H100 (PERF.md).
+DEFAULT_BLOCK = 32
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _pad_rows_pow2(x: jax.Array) -> jax.Array:
+    pad = _next_pow2(x.shape[0]) - x.shape[0]
+    return jnp.pad(x, ((0, pad), (0, 0))) if pad else x
 
 
 def pack_scene(scene: Scene, escape_bound: bool = False) -> jax.Array:
@@ -70,119 +79,36 @@ def pack_bunny(scene: Scene) -> jax.Array:
         b.w_out[None], last], axis=0)
 
 
-def pack_bunny_mxu(scene: Scene) -> jax.Array:
-    """Pack the bunny MLP as MXU-ready block-Kronecker matrices.
-
-    The kernel's activations live as a (128, 128) stack of 16 feature
-    tiles: row ``8*k + r`` holds feature ``k``'s (8, 128) tile sublane
-    ``r``. In that layout the 16-wide contraction ``out[k] = sum_j W[j,k] *
-    f[j]`` IS a (128,128) @ (128,128) matmul with the constant matrix
-    ``M = kron(W.T, eye(8))`` (``M[8k+r, 8j+r'] = W[j,k] * delta(r,r')``) —
-    no transposes or relayouts anywhere; the MXU eats the contraction and
-    the VPU keeps only the sins/residuals (VERDICT r4 item 3).
-
-    Layout of the returned (784, 128) f32 block (features live in ROW
-    blocks: activation row 8k+r = feature k, tile sublane r):
-      rows   0-127  M_in  = kron(w_in.T (16,3), eye(8)), zero-padded K cols
-      rows 128-255  M_h1  = kron(w_h1.T, eye(8))
-      rows 256-383  M_h2  = kron(w_h2.T, eye(8))
-      rows 384-511  B_in  broadcast: row 8k+r = b_in[k] (all 128 cols)
-      rows 512-639  B_h1  likewise
-      rows 640-767  B_h2  likewise
-      rows 768-775  V_out = kron(w_out (1,16), eye(8)) — (8, 128)
-      row  776      col 0 = bias_out
-      rows 777-783  zero padding
-
-    Built with jnp ops: the scene may be a traced constant inside jit
-    (march_pallas packs at trace time; XLA constant-folds it).
-    """
-    b = scene.bunny
-    f32 = jnp.float32
-    w_in = jnp.asarray(b.w_in, f32)    # (3, 16)
-    w_h1 = jnp.asarray(b.w_h1, f32)    # (16, 16)
-    w_h2 = jnp.asarray(b.w_h2, f32)    # (16, 16)
-    w_out = jnp.asarray(b.w_out, f32)  # (16,)
-    eye8 = jnp.eye(8, dtype=f32)
-
-    def kron_t(w):  # (j_in, 16) -> (128, 8*j_in) -> pad K cols to 128
-        m = jnp.kron(w.T, eye8)  # (128, 8*j_in)
-        return jnp.pad(m, ((0, 0), (0, 128 - m.shape[1])))
-
-    def bfull(v):  # per-feature bias -> (128, 128) row-block broadcast
-        return jnp.tile(jnp.repeat(jnp.asarray(v, f32), 8)[:, None],
-                        (1, 128))
-
-    v_out = jnp.kron(w_out[None, :], eye8)  # (8, 128)
-    last = jnp.zeros((1, 128), f32).at[0, 0].set(b.bias_out)
-    return jnp.concatenate([
-        kron_t(w_in), kron_t(w_h1), kron_t(w_h2),
-        bfull(b.b_in), bfull(b.b_h1), bfull(b.b_h2),
-        v_out, last,
-        jnp.zeros((7, 128), f32)], axis=0)  # 784 rows
-
-
-def _bunny_tile_mxu(mref, px, py, pz):
-    """MXU bunny eval on an (8, 128) tile (see pack_bunny_mxu): three
-    (128,128) matmuls + per-tile sins. Math identical to _bunny_tile up to
-    f32 summation order inside the MXU contraction."""
-    f32 = jnp.float32
-    shape_in = px.shape  # (1, rows, 128) inside the kernel's block
-    rows = shape_in[-2]
-    if rows != 8:
-        raise ValueError("bunny_mxu requires march_tile_rows=8 (the kron "
-                         "packing assumes 8-sublane feature blocks)")
-    px, py, pz = (v.reshape(rows, TILE_COLS) for v in (px, py, pz))
-    pad = jnp.zeros((128 - 3 * rows, TILE_COLS), f32)
-    p = jnp.concatenate([px, py, pz, pad], axis=0)        # (128, 128)
-    m_in = mref[0:128, :]
-    m_h1 = mref[128:256, :]
-    m_h2 = mref[256:384, :]
-    b_in = mref[384:512, :]
-    b_h1 = mref[512:640, :]
-    b_h2 = mref[640:768, :]
-    v_out = mref[768:776, :]
-    bias_out = mref[776, 0]
-
-    dot = lambda a, x: jax.lax.dot_general(
-        a, x, (((1,), (0,)), ((), ())), preferred_element_type=f32)
-    f0 = jnp.sin(dot(m_in, p) + b_in)
-    f1 = jnp.sin(dot(m_h1, f0) + b_h1) + f0
-    f2 = jnp.sin(dot(m_h2, f1) + b_h2) * (1.0 / 1.4) + f1
-    sd = dot(v_out, f2) + bias_out                        # (8, 128)
-    r = jnp.sqrt(px * px + py * py + pz * pz)
-    return jnp.where(r > 1.0, r - 0.8, sd).reshape(shape_in)
-
-
-def _bunny_tile(wref, px, py, pz):
-    """Sin-MLP bunny SDF on an (8, 128) tile — the two 16-wide hidden
-    layers unrolled as VPU FMA chains (a 16x16 contraction is far below
-    MXU-efficient size; the unroll keeps everything in vector registers).
+def _bunny_block(w, px, py, pz):
+    """Sin-MLP bunny SDF on a block of points — the two 16-wide hidden
+    layers unrolled as FMA chains on scalar weights ``w[row][col]`` (a 16x16
+    layer is far below a tensor-core tile, and TF32 would break the SDF).
     Math identical to ops/sdf.bunny_mlp_eval (bunny_sdf_glass.py:150-203).
     """
-    f0 = [jnp.sin(px * wref[0, k] + py * wref[1, k] + pz * wref[2, k]
-                  + wref[3, k]) for k in range(16)]
+    f0 = [jnp.sin(px * w[0][k] + py * w[1][k] + pz * w[2][k] + w[3][k])
+          for k in range(16)]
     f1 = []
     for k in range(16):
-        acc = f0[0] * wref[4, k]
+        acc = f0[0] * w[4][k]
         for j in range(1, 16):
-            acc = acc + f0[j] * wref[4 + j, k]
-        f1.append(jnp.sin(acc + wref[20, k]) + f0[k])
+            acc = acc + f0[j] * w[4 + j][k]
+        f1.append(jnp.sin(acc + w[20][k]) + f0[k])
     f2 = []
     for k in range(16):
-        acc = f1[0] * wref[21, k]
+        acc = f1[0] * w[21][k]
         for j in range(1, 16):
-            acc = acc + f1[j] * wref[21 + j, k]
-        f2.append(jnp.sin(acc + wref[37, k]) * (1.0 / 1.4) + f1[k])
-    sd = f2[0] * wref[38, 0]
+            acc = acc + f1[j] * w[21 + j][k]
+        f2.append(jnp.sin(acc + w[37][k]) * (1.0 / 1.4) + f1[k])
+    sd = f2[0] * w[38][0]
     for k in range(1, 16):
-        sd = sd + f2[k] * wref[38, k]
-    sd = sd + wref[39, 0]
+        sd = sd + f2[k] * w[38][k]
+    sd = sd + w[39][0]
     r = jnp.sqrt(px * px + py * py + pz * pz)
     return jnp.where(r > 1.0, r - 0.8, sd)
 
 
-def _sd_tile(type_id: int, px, py, pz, sx, sy, sz, box_round: float):
-    """Distance of one object type for a tile of local points (8, 128).
+def _sd_block(type_id: int, px, py, pz, sx, sy, sz, box_round: float):
+    """Distance of one object type for a block of local points.
 
     Same formulas as ops/sdf.py (iquilezles), expressed on unpacked
     coordinates (scalars sx/sy/sz are this object's scale components).
@@ -216,16 +142,34 @@ def _sd_tile(type_id: int, px, py, pz, sx, sy, sz, box_round: float):
     return jnp.full_like(px, 1e3)
 
 
-def _nearest_tile(scene_types, obj_params, x, y, z, box_round,
-                  bunny_ref=None, rot_perm=None, bunny_mxu=False):
-    """Unrolled min over |sd_i| for a tile of world points. Returns
-    (min_dis, index) as (8, 128) arrays.
+# Scale columns each shape's distance function reads (pack_scene layout).
+_SCALE_COLS = {SHAPE.SPHERE: (3,), SHAPE.BOX: (3, 4, 5),
+               SHAPE.CYLINDER: (3, 4), SHAPE.CONE: (3, 4, 5),
+               SHAPE.PLANE: (4,), SHAPE.BUNNY: (), SHAPE.NONE: ()}
 
-    ``obj_params``: list of per-object scalar tuples pre-loaded OUTSIDE the
-    march loop (one VMEM scalar read per parameter per kernel, not per
-    iteration). ``rot_perm``: static per-object signed-permutation
-    classification (Scene.rot_perm) — identity and 90-degree rotations
-    (most objects in every reference scene) skip the 9-mul row matmuls."""
+
+def _load_object_params(params_ref, scene_types, rot_perm):
+    """Per-object scalar parameters, read once before the march loop: the
+    translation, animation offset and the scale components the shape uses,
+    plus the rotation rows only for objects that are not a signed axis
+    permutation."""
+    out = []
+    for i, t in enumerate(scene_types):
+        cols = [0, 1, 2, 15, 16, 17, *_SCALE_COLS[SHAPE(t)]]
+        if rot_perm is None or rot_perm[i] is None:
+            cols += list(range(6, 15))
+        out.append({k: params_ref[i, k] for k in cols})
+    return out
+
+
+def _nearest_block(scene_types, obj_params, x, y, z, box_round,
+                   bunny_w=None, rot_perm=None):
+    """Unrolled min over |sd_i| for a block of world points. Returns
+    (min_dis, index).
+
+    ``rot_perm``: static per-object signed-permutation classification
+    (Scene.rot_perm) — identity and 90-degree rotations (most objects in
+    every reference scene) skip the 9-mul row matmuls."""
     best = jnp.full_like(x, 1e3)
     idx = jnp.zeros_like(x, dtype=jnp.int32)
     for i, t in enumerate(scene_types):
@@ -247,57 +191,39 @@ def _nearest_tile(scene_types, obj_params, x, y, z, box_round,
             py = pr[9] * tx + pr[10] * ty + pr[11] * tz + pr[16]
             pz = pr[12] * tx + pr[13] * ty + pr[14] * tz + pr[17]
         if t == SHAPE.BUNNY:
-            # Tile-level support guard: the sin-MLP is only valid (and only
+            # Block-level support guard: the sin-MLP is only valid (and only
             # needed) inside the unit sphere; outside, sd_bunny falls back to
             # the analytic ``r - 0.8`` (bunny_sdf_glass.py:151-155). The MLP
-            # is ~650 VPU FMAs + 48 sins per eval — by far the most expensive
-            # SDF — and a bunny occupies a small screen fraction, so most
-            # (8,128) tiles never have a lane inside the support during most
-            # march iterations. One cross-lane min + lax.cond skips the MLP
-            # for the whole tile in that common case (lanes are pixel-
-            # coherent, so the guard hits).
+            # is by far the most expensive SDF and a bunny covers a small
+            # screen fraction, so most blocks have no lane inside the support
+            # during most iterations. One block-wide min + lax.cond skips the
+            # MLP for the whole block then (lanes are pixel-coherent).
             r2 = px * px + py * py + pz * pz
-            tile_fn = _bunny_tile_mxu if bunny_mxu else _bunny_tile
             d = jax.lax.cond(
-                jnp.min(r2) <= 1.0,  # <= : at r == 1 _bunny_tile uses the MLP
-                lambda: jnp.abs(tile_fn(bunny_ref, px, py, pz)),
+                jnp.min(r2) <= 1.0,  # <= : at r == 1 _bunny_block uses the MLP
+                lambda: jnp.abs(_bunny_block(bunny_w, px, py, pz)),
                 lambda: jnp.sqrt(r2) - 0.8)  # r > 1 everywhere -> positive
         else:
-            d = jnp.abs(
-                _sd_tile(t, px, py, pz, pr[3], pr[4], pr[5], box_round))
+            d = jnp.abs(_sd_block(t, px, py, pz, pr.get(3), pr.get(4),
+                                  pr.get(5), box_round))
         take = d < best
         idx = jnp.where(take, i, idx)
         best = jnp.where(take, d, best)
     return best, idx
 
 
-def resolve_chunk(cfg: RenderConfig) -> int:
-    """March-loop unroll: iterations per cross-lane convergence check.
-
-    Amortizes the cross-lane any-active reduction and loop branch over
-    several masked iterations; post-convergence work inside a chunk is
-    masked out, so semantics are chunk-invariant. 32 measured best on v5e
-    for the cornell wavefront (mixed-state march 7.7ms @8 -> 6.8ms @32);
-    64 blows up Mosaic compile time. Interpreter/CPU runs (tests) keep a
-    small unroll — there the masked extra iterations are real work.
-    """
-    if cfg.march_chunk is not None:
-        if cfg.max_raymarch % cfg.march_chunk != 0:
-            raise ValueError(
-                f"march_chunk={cfg.march_chunk} must divide "
-                f"max_raymarch={cfg.max_raymarch} (chunked unrolling must "
-                "not overshoot the iteration budget)")
-        target = cfg.march_chunk
-    else:
-        target = 32 if jax.default_backend() not in ("cpu", "gpu") else 4
-    return next((c for c in (target, 16, 8, 4) if c <= target
-                 and cfg.max_raymarch % c == 0), 1)
+def resolve_block(cfg: RenderConfig) -> int:
+    """Rays per program (``cfg.march_block``; a power of two)."""
+    block = cfg.march_block or DEFAULT_BLOCK
+    if block < 1 or block & (block - 1):
+        raise ValueError(f"march_block={block} must be a power of two")
+    return block
 
 
 def _march_kernel(params_ref, *refs, scene_types: Tuple[int, ...], cfg,
                   box_round: float, has_bunny: bool, has_active: bool,
                   rot_perm: Tuple = None, has_bound: bool = False,
-                  has_init: bool = False, bunny_mxu: bool = False):
+                  has_init: bool = False, n_valid: int = 0):
     refs = list(refs)
     bunny_ref = refs.pop(0) if has_bunny else None
     act_ref = refs.pop(0) if has_active else None
@@ -305,22 +231,20 @@ def _march_kernel(params_ref, *refs, scene_types: Tuple[int, ...], cfg,
     (ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
      t_ref, idx_ref, hit_ref, iters_ref,
      wout_ref, sout_ref, dout_ref, done_ref) = refs
-    ox, oy, oz = ox_ref[:], oy_ref[:], oz_ref[:]
-    dx, dy, dz = dx_ref[:], dy_ref[:], dz_ref[:]
+    ox, oy, oz = ox_ref[...], oy_ref[...], oz_ref[...]
+    dx, dy, dz = dx_ref[...], dy_ref[...], dz_ref[...]
 
-    # Hoist every per-object scalar out of the march loop: one VMEM scalar
-    # read per parameter per kernel invocation instead of per iteration.
-    obj_params = [tuple(params_ref[i, k] for k in range(18))
-                  for i in range(len(scene_types))]
+    # Every scalar the loop reads is loaded once, before it.
+    obj_params = _load_object_params(params_ref, scene_types, rot_perm)
+    bunny_w = ([[bunny_ref[r, c] for c in range(16)] for r in range(40)]
+               if has_bunny else None)
 
     bound2 = params_ref[0, 18] if has_bound else None
     pixel_radius = cfg.pixel_radius
     w0 = cfg.omega
     rollback_allowed = cfg.omega_policy != OmegaPolicy.CONSTANT
-    chunk = resolve_chunk(cfg)
 
-    # Masks live in the loop carry as int32 (0/1) — Mosaic does not lower
-    # i1 vectors in while-loop carries ("unsupported target bitwidth").
+    # Masks live in the loop carry as int32 (0/1).
     def cond(st):
         i, t, w, s, d, idx, hit, done, fin = st
         return (i < cfg.max_raymarch) & (jnp.min(done) < 1)
@@ -330,9 +254,8 @@ def _march_kernel(params_ref, *refs, scene_types: Tuple[int, ...], cfg,
         x = ox + t * dx
         y = oy + t * dy
         z = oz + t * dz
-        dist, index = _nearest_tile(scene_types, obj_params, x, y, z,
-                                    box_round, bunny_ref, rot_perm,
-                                    bunny_mxu=bunny_mxu)
+        dist, index = _nearest_block(scene_types, obj_params, x, y, z,
+                                     box_round, bunny_w, rot_perm)
         ld = d
 
         if not rollback_allowed:
@@ -370,9 +293,8 @@ def _march_kernel(params_ref, *refs, scene_types: Tuple[int, ...], cfg,
                                  & (x * dx + y * dy + z * dz > 0.0))
         done_new = jnp.maximum(
             done, (upd & (hit_now | escaped)).astype(jnp.int32))
-        # record each lane's convergence iteration (1-based count of body
-        # evaluations it actually needed) — the load-imbalance /
-        # utilization-accounting signal (see march_pallas docstring)
+        # each lane's convergence iteration (1-based count of body
+        # evaluations it actually needed; see march_pallas)
         fin = jnp.where((done < 1) & (done_new > 0), i + 1, fin)
         return (i + 1,
                 t_new,
@@ -384,128 +306,119 @@ def _march_kernel(params_ref, *refs, scene_types: Tuple[int, ...], cfg,
                 done_new,
                 fin)
 
-    def chunk_body(st):
-        for _ in range(chunk):
-            st = body(st)
-        return st
-
     shape = ox.shape
+    zero_i = jnp.zeros(shape, jnp.int32)
     f = lambda v: jnp.full(shape, v, ox.dtype)
-    # inactive lanes start done: an all-inactive tile exits before its first
-    # nearest() evaluation (adaptive-sampling gate, dead megakernel lanes)
-    done0 = ((1 - act_ref[:]) if has_active
-             else jnp.zeros(shape, jnp.int32))
-    fin0 = done0 * 0 + (1 - done0) * jnp.int32(cfg.max_raymarch)
+    # inactive and padding lanes start done: an all-inactive block exits
+    # before its first nearest() evaluation (adaptive-sampling gate, dead
+    # megakernel lanes)
+    done0 = (1 - act_ref[...]) if has_active else zero_i
+    if n_valid % shape[0]:
+        lane = (pl.program_id(0) * shape[0]
+                + jax.lax.iota(jnp.int32, shape[0]))
+        done0 = jnp.where(lane < n_valid, done0, 1)
+    fin0 = (1 - done0) * jnp.int32(cfg.max_raymarch)
     if has_init:
-        # phase resumption (march_phased): carry the loop state of a prior
+        # resumption (split march): carry the loop state of a prior
         # budget-limited run — per lane, the iteration sequence is identical
         # to one uninterrupted march
-        t0v, w0v, s0v, d0v = (r[:] for r in init_refs)
+        t0v, w0v, s0v, d0v = (r[...] for r in init_refs)
     else:
         t0v, w0v, s0v, d0v = f(cfg.march_t0), f(w0), f(0.0), f(1e3)
-    st = jax.lax.while_loop(cond, chunk_body, (
-        jnp.zeros((), jnp.int32),
+    st = jax.lax.while_loop(cond, body, (
+        jnp.int32(0),
         t0v,
         w0v,
         s0v,
         d0v,
-        jnp.zeros(shape, jnp.int32),
-        jnp.zeros(shape, jnp.int32),
+        zero_i,
+        zero_i,
         done0,
         fin0,
     ))
-    i_final, t, w, s, d, idx, hit, done, fin = st
-    t_ref[:] = t
-    idx_ref[:] = idx
-    hit_ref[:] = hit
-    iters_ref[:] = fin
-    wout_ref[:] = w
-    sout_ref[:] = s
-    dout_ref[:] = d
-    done_ref[:] = done
+    _, t, w, s, d, idx, hit, done, fin = st
+    t_ref[...] = t
+    idx_ref[...] = idx
+    hit_ref[...] = hit
+    iters_ref[...] = fin
+    wout_ref[...] = w
+    sout_ref[...] = s
+    dout_ref[...] = d
+    done_ref[...] = done
 
 
-def resolve_tile_rows(cfg: RenderConfig) -> int:
-    """Tile height (sublanes) for the march kernel — see the
-    ``march_tile_rows`` config note. Auto: tall (32) tiles when the
-    kernel's own trip budget is one-or-two chunks (the split-march step:
-    every active tile pays the full budget anyway, so height only
-    amortizes per-tile fixed cost — measured +11%); standard (8, 128)
-    tiles for long single-shot marches where height coarsens the per-tile
-    early exit. bunny_mxu's kron packing assumes 8 sublanes."""
-    if cfg.march_tile_rows is not None:
-        return cfg.march_tile_rows
-    if cfg.bunny_mxu:
-        return 8
-    return 32 if cfg.max_raymarch <= 64 else 8
-
-
-def _pad_to_tile(x: jax.Array, tile: int = TILE) -> Tuple[jax.Array, int]:
-    n = x.shape[0]
-    pad = (-n) % tile
+def _pad_to_block(x: jax.Array, block: int) -> jax.Array:
+    pad = (-x.shape[0]) % block
     if pad:
         x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], x.dtype)])
-    return x, n
+    return x
 
 
 @functools.partial(jax.jit, static_argnames=("scene_types", "box_round",
-                                             "cfg", "rot_perm", "has_bound",
-                                             "bunny_mxu"))
+                                             "cfg", "rot_perm", "has_bound"))
 def _march_pallas_impl(params, bunny, origin, direction, active, scene_types,
                        box_round, cfg: RenderConfig, rot_perm=None,
-                       has_bound=False, init=None, bunny_mxu=False):
-    rows = resolve_tile_rows(cfg)
-    tile = rows * TILE_COLS
-    o_pad, n = _pad_to_tile(origin, tile)
-    d_pad, _ = _pad_to_tile(direction, tile)
+                       has_bound=False, init=None):
+    block = resolve_block(cfg)
+    n = origin.shape[0]
+    o_pad = _pad_to_block(origin, block)
+    d_pad = _pad_to_block(direction, block)
     num = o_pad.shape[0]
-    tiles = num // tile
-    shape3 = (tiles, rows, TILE_COLS)
-
-    def split(v):
-        return [v[:, k].reshape(shape3) for k in range(3)]
-
-    ox, oy, oz = split(o_pad)
-    dx, dy, dz = split(d_pad)
+    rays = [o_pad[:, k] for k in range(3)] + [d_pad[:, k] for k in range(3)]
 
     has_bunny = bunny is not None
-    has_active = active is not None
     has_init = init is not None
+    has_active = active is not None
     kernel = functools.partial(_march_kernel, scene_types=scene_types,
                                cfg=cfg, box_round=box_round,
                                has_bunny=has_bunny, has_active=has_active,
                                rot_perm=rot_perm, has_bound=has_bound,
-                               has_init=has_init, bunny_mxu=bunny_mxu)
+                               has_init=has_init, n_valid=n)
 
-    tile_spec = pl.BlockSpec((1, rows, TILE_COLS),
-                             lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM)
-    full_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    extra = [bunny] if has_bunny else []
-    act = []
+    whole = [_pad_rows_pow2(params)]
+    if has_bunny:
+        whole.append(_pad_rows_pow2(bunny))
+    lanes = []
     if has_active:
-        # pad lanes are inactive (padding rays must not march)
-        a_pad, _ = _pad_to_tile(active.astype(jnp.int32), tile)
-        act = [a_pad.reshape(shape3)]
-    init_tiles = []
+        lanes.append(_pad_to_block(active.astype(jnp.int32), block))
     if has_init:
-        for v in init:  # (t, w, s, d) resumed loop state, (n,) f32 each
-            v_pad, _ = _pad_to_tile(v, tile)
-            init_tiles.append(v_pad.reshape(shape3))
+        # (t, w, s, d) resumed loop state, (n,) f32 each
+        lanes += [_pad_to_block(v, block) for v in init]
+    lanes += rays
+
+    lane_spec = pl.BlockSpec((block,), lambda i: (i,))
+    whole_specs = [pl.BlockSpec(a.shape, lambda i: (0, 0)) for a in whole]
     f32 = jnp.float32
     i32 = jnp.int32
     outs = pl.pallas_call(
         kernel,
-        grid=(tiles,),
-        in_specs=([full_spec] * (1 + len(extra))
-                  + [tile_spec] * (len(act) + len(init_tiles) + 6)),
-        out_specs=[tile_spec] * 8,
-        out_shape=[jax.ShapeDtypeStruct(shape3, dt)
+        grid=(num // block,),
+        in_specs=whole_specs + [lane_spec] * len(lanes),
+        out_specs=[lane_spec] * 8,
+        out_shape=[jax.ShapeDtypeStruct((num,), dt)
                    for dt in (f32, i32, i32, i32, f32, f32, f32, i32)],
-    )(params, *extra, *act, *init_tiles, ox, oy, oz, dx, dy, dz)
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=max(1, min(block // 32, 8)), num_stages=1),
+        name="sphere_march",
+    )(*whole, *lanes)
 
-    t, idx, hit, iters, w, s, d, done = (v.reshape(num)[:n] for v in outs)
+    t, idx, hit, iters, w, s, d, done = (v[:n] for v in outs)
     return t, idx, hit.astype(bool), iters, w, s, d, done
+
+
+def march_kernel_state(scene: Scene, origin: jax.Array, direction: jax.Array,
+                       cfg: RenderConfig, active=None, init=None):
+    """Run the kernel; returns the full per-lane loop state
+    ``(t, index, hit, lane_iters, w, s, d, done)``."""
+    has_bound = cfg.escape_bound and SHAPE.PLANE not in scene.shape_types
+    params = pack_scene(scene, escape_bound=has_bound)
+    bunny = pack_bunny(scene) if scene.bunny is not None else None
+    return _march_pallas_impl(params, bunny, origin, direction, active,
+                              tuple(scene.shape_types),
+                              float(scene.box_round), cfg,
+                              rot_perm=tuple(scene.rot_perm),
+                              has_bound=has_bound, init=init)
 
 
 def march_pallas(scene: Scene, origin: jax.Array, direction: jax.Array,
@@ -514,166 +427,8 @@ def march_pallas(scene: Scene, origin: jax.Array, direction: jax.Array,
     first three match ``ops.march._march_loop``; ``lane_iters`` is the (N,)
     per-lane convergence iteration (how many body evaluations each lane
     actually needed; ``max_raymarch`` if it never converged, 0 if gated
-    inactive). Each (8,128) tile executes ``ceil(max(lane_iters in tile) /
-    chunk) * chunk`` iterations in lock-step — the utilization and
-    load-imbalance accounting input (utils/speedlight.py).
+    inactive). Each block executes ``max(lane_iters in block)`` iterations
+    in lock-step.
     ``active``: optional (N,) bool lane gate (see ``ops.march.march``)."""
-    has_bound = cfg.escape_bound and SHAPE.PLANE not in scene.shape_types
-    params = pack_scene(scene, escape_bound=has_bound)
-    mxu = cfg.bunny_mxu
-    bunny = ((pack_bunny_mxu(scene) if mxu else pack_bunny(scene))
-             if scene.bunny is not None else None)
-    return _march_pallas_impl(params, bunny, origin, direction, active,
-                              tuple(scene.shape_types),
-                              float(scene.box_round), cfg,
-                              rot_perm=tuple(scene.rot_perm),
-                              has_bound=has_bound, bunny_mxu=mxu)[:4]
-
-
-def resolve_phases(cfg: RenderConfig) -> Tuple[int, ...]:
-    """Budget split for the phased (compacted) march.
-
-    ``cfg.march_phases`` wins when set (must sum to ``max_raymarch``).
-    Auto: a short budget runs in one phase; otherwise 32, 32, then doubling
-    (512 -> 32+32+64+128+256; 2048 -> ... +512+1024), each capped by the
-    remaining budget. Informed by tools/probe_divergence.py on cornell
-    full-PBR: lane need p50=16, p99=69, max=512 — almost every lane
-    converges in the first phase or two, and the sub-1% tail that poisons
-    every (8,128) tile of a single-shot march gets repacked into a handful
-    of tiles."""
-    if cfg.march_phases is not None:
-        ps = tuple(int(b) for b in cfg.march_phases)
-        if sum(ps) != cfg.max_raymarch or any(b <= 0 for b in ps):
-            raise ValueError(
-                f"march_phases={cfg.march_phases} must be positive and sum "
-                f"to max_raymarch={cfg.max_raymarch}")
-        return ps
-    m = cfg.max_raymarch
-    # An explicit march_chunk must divide every phase budget (resolve_chunk
-    # raises otherwise — e.g. march_chunk=64 with the old fixed 32-budget
-    # phases broke inside the jitted march; ADVICE r3), so round budgets up
-    # to chunk multiples.
-    q = cfg.march_chunk if cfg.march_chunk else 1
-
-    def up(b):
-        return -(-b // q) * q
-
-    if m <= max(64, 2 * q):
-        return (m,)
-    phases, nxt = [], up(32)
-    while sum(phases) < m:
-        b = min(nxt, m - sum(phases))
-        phases.append(b)
-        if len(phases) >= 2:
-            nxt = up(nxt * 2)
-    return tuple(phases)
-
-
-def _partition_active(done: jax.Array) -> jax.Array:
-    """Stable permutation putting not-done lanes first.
-
-    ``done`` is (N,) int32 0/1; returns ``perm`` with ``perm[new] = old``
-    (gather semantics). Cumsum-based counting partition — O(N), no sort."""
-    n = done.shape[0]
-    act = 1 - done
-    n_act = jnp.sum(act)
-    pos = jnp.where(act == 1,
-                    jnp.cumsum(act) - 1,
-                    n_act + jnp.cumsum(done) - 1)
-    return jnp.zeros((n,), jnp.int32).at[pos].set(
-        jnp.arange(n, dtype=jnp.int32))
-
-
-def march_phased(scene: Scene, origin: jax.Array, direction: jax.Array,
-                 cfg: RenderConfig, active=None):
-    """Compacted multi-phase march: same results as :func:`march_pallas`,
-    far less executed work on divergent batches.
-
-    Single-shot marching pays per-tile max iterations: on the mixed-state
-    cornell wavefront the <1% grazing-ray tail (up to ``max_raymarch``
-    iterations) lands in nearly every (8,128) tile, so the batch executes
-    ~14x the algorithmically needed lane-iterations
-    (tools/probe_divergence.py: 55.6M executed / 3.85M needed). This
-    wrapper marches everyone a small budget, then repeatedly REPACKS the
-    unconverged lanes to the front (stable counting partition — converged
-    tiles exit after one convergence check) and resumes them with doubled
-    budgets, carrying the exact loop state (t, w, s, d) — per lane the
-    iteration sequence is identical to one uninterrupted march, so results
-    are bit-equal to ``march_pallas`` while executed work approaches the
-    per-lane need. The GPU analog is persistent-threads ray compaction /
-    "Shader Execution Reordering"; here it is a host-free XLA
-    gather/scatter between pallas_call phases.
-
-    WHY IT CANNOT WIN on this batch shape (measured r4,
-    tools/probe_phased_anatomy.py, TPU v5e, cornell 230k rays): a single
-    b=32 phase over the full batch costs 2.1 ms — already ~86% of the
-    ENTIRE single-shot 512-budget march (2.45 ms), because with chunk=32
-    every active tile executes the full 32 iterations before its first
-    cross-lane convergence check, and the p50 lane need is only ~16. The
-    single-shot's per-tile early exit already stops most tiles after one
-    chunk; its divergence waste (13.4M lane-iters executed vs 4.6M needed)
-    is bounded by the ceil(tile_max/chunk)*chunk granularity, worth at most
-    ~1.5 ms — less than ONE phase's fixed cost, before the ~5 ms/round
-    partition+gathers. Compaction could only pay if a phase's fixed cost
-    were far below the reclaimable waste, i.e. much larger batches or a
-    much longer-tailed need distribution than any reference workload has.
-    Kept for the API surface and for such workloads; default OFF
-    (config.march_compaction).
-    """
-    phases = resolve_phases(cfg)
-    if len(phases) == 1:
-        return march_pallas(scene, origin, direction, cfg, active=active)
-
-    has_bound = cfg.escape_bound and SHAPE.PLANE not in scene.shape_types
-    params = pack_scene(scene, escape_bound=has_bound)
-    bunny = ((pack_bunny_mxu(scene) if cfg.bunny_mxu else pack_bunny(scene))
-             if scene.bunny is not None else None)
-    stypes = tuple(scene.shape_types)
-    br = float(scene.box_round)
-    rp = tuple(scene.rot_perm)
-
-    tile = resolve_tile_rows(cfg) * TILE_COLS
-    o_pad, n = _pad_to_tile(origin, tile)
-    d_pad, _ = _pad_to_tile(direction, tile)
-    num = o_pad.shape[0]
-    f32 = o_pad.dtype
-
-    if active is None:
-        done = jnp.zeros((num,), jnp.int32).at[n:].set(1)
-    else:
-        a_pad, _ = _pad_to_tile(active.astype(jnp.int32), tile)
-        done = 1 - a_pad  # pad lanes arrive as 0 -> done
-    order = jnp.arange(num, dtype=jnp.int32)  # lane position -> ray id
-    t = jnp.full((num,), cfg.march_t0, f32)
-    w = jnp.full((num,), cfg.omega, f32)
-    s = jnp.zeros((num,), f32)
-    d = jnp.full((num,), 1e3, f32)
-    idx = jnp.zeros((num,), jnp.int32)
-    hit = jnp.zeros((num,), bool)
-    fin = jnp.zeros((num,), jnp.int32)
-
-    for k, budget in enumerate(phases):
-        if k > 0:
-            perm = _partition_active(done)
-            order, t, w, s, d, idx, hit, fin, done = (
-                v[perm] for v in (order, t, w, s, d, idx, hit, fin, done))
-        o_cur = o_pad[order]
-        d_cur = d_pad[order]
-        was_active = done == 0
-        t, idx_p, hit_p, fin_p, w, s, d, done = _march_pallas_impl(
-            params, bunny, o_cur, d_cur, was_active, stypes, br,
-            cfg.replace(max_raymarch=budget), rot_perm=rp,
-            has_bound=has_bound, init=(t, w, s, d) if k > 0 else None,
-            bunny_mxu=cfg.bunny_mxu)
-        # done-at-entry lanes keep their previous result (the kernel writes
-        # zeros for them); the budget-capped fin of still-marching lanes
-        # accumulates into the total need
-        idx = jnp.where(was_active, idx_p, idx)
-        hit = jnp.where(was_active, hit_p, hit)
-        fin = fin + fin_p
-
-    inv_t = jnp.zeros((num,), f32).at[order].set(t)
-    inv_idx = jnp.zeros((num,), jnp.int32).at[order].set(idx)
-    inv_hit = jnp.zeros((num,), bool).at[order].set(hit)
-    inv_fin = jnp.zeros((num,), jnp.int32).at[order].set(fin)
-    return inv_t[:n], inv_idx[:n], inv_hit[:n], inv_fin[:n]
+    return march_kernel_state(scene, origin, direction, cfg,
+                              active=active)[:4]

@@ -1,10 +1,12 @@
 """Device-mesh helpers.
 
 New component with no reference analog (SURVEY.md §2.4): the reference is a
-single-GPU app; the TPU build scales its one parallelism axis — per-pixel
-data parallelism — across a chip/host mesh, plus a sample axis for
-spp batches. Collectives ride ICI within a slice and DCN across hosts
-(``jax.distributed.initialize`` + the same SPMD program on every host).
+single-GPU app; this build scales its one parallelism axis — per-pixel
+data parallelism — across the cards of a host (or several hosts), plus a
+sample axis for spp batches. The cards of a host reach each other all to
+all over NVLink at one rate, so the mesh shape follows the algorithm alone;
+XLA hands the collectives to NCCL, and across hosts the same SPMD program
+runs on every host after ``jax.distributed.initialize``.
 """
 from __future__ import annotations
 
@@ -46,10 +48,10 @@ def multihost_init(coordinator_address: Optional[str] = None,
                    process_id: Optional[int] = None) -> None:
     """Initialize the multi-host runtime (no-op on a single process).
 
-    On a pod slice each host runs this same program;
-    ``jax.distributed.initialize`` wires the DCN coordination layer and
-    ``jax.devices()`` then spans the slice (SURVEY.md §2.4 "Multi-host
-    runtime").
+    On a multi-host cluster each host runs this same program;
+    ``jax.distributed.initialize`` wires the coordination layer and
+    ``jax.devices()`` then spans every host's cards (SURVEY.md §2.4
+    "Multi-host runtime").
 
     Call BEFORE creating any device value (jax requires distributed init
     before the XLA backend initializes; package import is deliberately

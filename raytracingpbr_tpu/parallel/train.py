@@ -3,7 +3,7 @@
 New component with no reference analog (SURVEY.md §2.4): pixel-loss gradients
 flow through the differentiable megakernel (implicit-function march VJP,
 ``ops/march.py``) to scene parameters (albedo, emission, roughness, SDF
-shape/transform) and are ``psum``-all-reduced over ICI inside ``shard_map``
+shape/transform) and are ``psum``-all-reduced across cards inside ``shard_map``
 — each device backprops its own ray tile, then the parameter gradient is
 combined (the "gradient all-reduce overlapped with backward replay" row of
 SURVEY.md §2.4's component table).
@@ -11,12 +11,11 @@ SURVEY.md §2.4's component table).
 On per-segment overlap (SURVEY's "psum scheduled per-bounce-segment",
 resolved round 4): the ENTIRE scene-gradient payload is 992 bytes (11 SoA
 leaves, cornell full-PBR — measured; a differentiable-scene path tracer's
-parameters are per-object scalars, not network weights). One v5e ICI hop
-moves that in ~microseconds against a 75 ms backward step, i.e. the
-all-reduce is ~1e-4 of the step; splitting it into 128 per-bounce psums
-would ADD 128 collective latencies to hide one. A single psum after the
-backward is the optimal schedule at this payload scale, by measurement
-rather than by omission. (Overlap becomes relevant only if the parameter
+parameters are per-object scalars, not network weights). One collective
+moves that in microseconds, a negligible share of a backward step that
+takes tens of milliseconds; splitting it into 128 per-bounce psums would
+ADD 128 collective latencies to hide one. A single psum after the backward
+is the right schedule at this payload scale. (Overlap becomes relevant only if the parameter
 space grows to ~MBs — e.g. optimizing a large neural SDF or the full env
 map — at which point XLA's async collectives overlap automatically when
 the psum is issued per-leaf as gradients retire.)
@@ -104,7 +103,7 @@ def make_sharded_train_step(
 
     @partial(jax.shard_map, mesh=mesh,
              in_specs=(P(), target_spec, P()),
-             out_specs=(P(), P()))
+             out_specs=(P(), P()), check_vma=False)
     def grad_tile(scene: Scene, target_tile: jax.Array, step):
         ti = jax.lax.axis_index(TILE_AXIS)
         si = jax.lax.axis_index(SAMPLE_AXIS)
@@ -132,7 +131,7 @@ def make_sharded_train_step(
             return mse, mse
 
         (_, loss), g = jax.value_and_grad(loss_fn, has_aux=True)(scene)
-        # all-reduce: mean over tiles and sample ranks (ICI collectives)
+        # all-reduce: mean over tiles and sample ranks (across cards)
         g = jax.lax.pmean(jax.lax.pmean(g, TILE_AXIS), SAMPLE_AXIS)
         loss = jax.lax.pmean(jax.lax.pmean(loss, TILE_AXIS), SAMPLE_AXIS)
         return loss, g

@@ -1,9 +1,7 @@
 """Image comparison metrics for parity/regression gating.
 
 Used by ``tests/test_parity.py`` (self-golden PSNR gates per workload
-family) and ``tools/parity_cornell.py`` (PSNR/SSIM/block-corr against the
-reference's published golden, ``/root/reference/others/cornell_box_taichi.png``
-— the only image artifact the reference repo ships, ``README.md:16``).
+family) and ``chip_smoke.py`` (GPU render vs the CPU goldens).
 
 Pure numpy: these run on host over small images; no reason to trace them.
 """

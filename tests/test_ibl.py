@@ -133,3 +133,20 @@ def test_alias_sampler_matches_luminance_distribution():
     np.testing.assert_allclose(np.linalg.norm(np.asarray(d), axis=-1), 1.0,
                                atol=1e-5)
     assert (np.asarray(pdf) > 0).all()
+
+
+@pytest.mark.parametrize("m", [512, 4096, 16384])
+def test_fetch_rows_exact(m):
+    """Per-lane table fetches are exact at every table size, ids above
+    2048 included (a TF32 one-hot matmul would round both the payload and
+    the integer ids)."""
+    rng = np.random.default_rng(m)
+    table = rng.random((m, 4)).astype(np.float32)
+    ids = rng.integers(0, m, 4096).astype(np.int32)
+    ids[:16] = np.arange(m - 16, m)  # the highest ids
+    assert (ids > 2048).any() or m <= 2048
+    got = np.asarray(ibl.fetch_rows(jnp.asarray(table), jnp.asarray(ids)))
+    np.testing.assert_array_equal(got, table[ids])
+    alias = np.arange(m, dtype=np.int32)[::-1].copy()
+    got_i = np.asarray(ibl.fetch_rows(jnp.asarray(alias), jnp.asarray(ids)))
+    np.testing.assert_array_equal(got_i, alias[ids])

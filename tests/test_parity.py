@@ -8,8 +8,8 @@ across compiler versions; any actual rendering regression (march, shade,
 IBL, RNG, post) lands far below it.
 
 External-golden comparison (the reference's published
-others/cornell_box_taichi.png) needs a 768-spp converged render and lives
-in tools/parity_cornell.py; its PSNR/SSIM numbers are recorded in PARITY.md.
+others/cornell_box_taichi.png) needs that image, which this repository does
+not hold; PARITY.md records the numbers an earlier tool measured.
 """
 import os
 

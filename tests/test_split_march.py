@@ -5,8 +5,8 @@ step's march and carry unconverged lanes' exact loop state to the next
 step. Properties tested here:
 
 1. Resumed marching is BIT-IDENTICAL to one uninterrupted march, per lane,
-   on both backends' shared XLA path (the Pallas kernel's has_init path is
-   additionally gated on hardware in tests/test_tpu.py).
+   on the XLA path (the Pallas kernel's init path is checked in interpret
+   mode in tests/test_pallas.py and on the card in tests/test_gpu.py).
 2. The split wavefront computes the same estimator: equal-sample means
    match the unsplit wavefront statistically.
 3. Sharding invariance: the split wavefront renders bit-identically on the
@@ -164,8 +164,8 @@ def test_split_wavefront_sharding_invariant():
     # in-flight (t, w, s, d) carry and displayed pixels may differ at
     # reassociation level ONLY on this CPU stand-in: XLA-CPU forms FMAs
     # differently for different shard SIZES on the split graph (per-lane
-    # math is identical; the Pallas TPU kernel is tile-quantized and has
-    # one codegen regardless of batch size).
+    # math is identical; the Pallas kernel is block-quantized and has one
+    # codegen regardless of batch size).
     np.testing.assert_array_equal(np.asarray(state1.accum),
                                   np.asarray(stateN.accum))
     np.testing.assert_array_equal(np.asarray(state1.march_cum),

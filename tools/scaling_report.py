@@ -1,12 +1,12 @@
-"""Produce the SCALING.md per-shard table: per-tile wall time, load
-imbalance, end-to-end sharded-vs-single timing.
+"""Per-shard scaling table: per-tile wall time, load imbalance, end-to-end
+sharded-vs-single timing.
 
 Usage:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python tools/scaling_report.py [--scene cornell|demo] [--tiles 8]
 
-On real multi-chip hardware the same harness yields the BASELINE.md scaling
-number (>85% at 2 hosts); on the virtual CPU mesh the efficiency column is
+On several GPUs the same harness yields the BASELINE.md scaling number
+(>85%); on the virtual CPU mesh the efficiency column is
 marked non-meaningful and only the imbalance accounting is load-bearing.
 """
 import argparse
